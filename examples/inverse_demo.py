@@ -1,10 +1,10 @@
 """Inverse-rendering demo: recover perturbed scene parameters by
-gradient descent on pixel MSE — the capability the TPU-native redesign
-adds over the forward-only C++ reference.
+gradient descent on pixel MSE — the capability the differentiable
+redesign adds over the forward-only C++ reference.
 
 Renders a target frame from a scene file, perturbs light intensity and
 an object color, then optimizes them back with adam. Works on CPU or
-TPU; any scene in tests/scenes/ (or the reference's input/) works.
+GPU; any scene in tests/scenes/ (or the reference's input/) works.
 
 Usage (from a directory whose input/ holds the scene's assets):
     python examples/inverse_demo.py [scene.scene] [--steps 150]
@@ -32,8 +32,8 @@ def recover_camera_pose(scene, steps: int, lr: float) -> int:
     import numpy as np
     import optax
 
-    from rendering_tpu.ops.geometry import euler_matrix_j
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.ops.geometry import euler_matrix_j
+    from rendering_jax.render.pipeline import render_scene
 
     target, _ = render_scene(scene)
     target = jnp.asarray(target)
@@ -99,14 +99,14 @@ def main(argv=None) -> int:
     import numpy as np
     import optax
 
-    from rendering_tpu.diff.inverse import (
+    from rendering_jax.diff.inverse import (
         apply_params,
         extract_params,
         make_train_step,
     )
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
+    from rendering_jax.render.pipeline import render_scene
 
     # SSAA off: the Sobel mask is a discrete function of the frame, so
     # keeping it out of the loop gives cleaner gradients.

@@ -1,5 +1,5 @@
 """Texture painting by gradient descent — the flagship-scale inverse-
-rendering showcase (VERDICT r4 next-step 7).
+rendering showcase.
 
 The forward-only C++ reference can RENDER the shotgun's diffuse map;
 this framework can RECOVER it: starting from a flat gray texture, adam
@@ -37,7 +37,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="showcase")
     ns = ap.parse_args(argv)
 
-    from rendering_tpu.utils.compile_cache import enable_compilation_cache
+    from rendering_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
     import jax
@@ -45,10 +45,10 @@ def main(argv=None) -> int:
     import numpy as np
     import optax
 
-    from rendering_tpu.diff.inverse import apply_params, extract_params
-    from rendering_tpu.flagship import build_flagship_scene
-    from rendering_tpu.render.pipeline import render_scene
-    from rendering_tpu.utils.bmp import save_bmp
+    from rendering_jax.diff.inverse import apply_params, extract_params
+    from rendering_jax.flagship import build_flagship_scene
+    from rendering_jax.render.pipeline import render_scene
+    from rendering_jax.utils.bmp import save_bmp
 
     scene = build_flagship_scene(
         width=ns.width, height=ns.height, n_tris=ns.tris,
@@ -57,7 +57,7 @@ def main(argv=None) -> int:
     ms = scene.static.meshes[0]
     assert ms.has_diffuse_map, (
         "showcase needs the shotgun diffuse map (reference assets under "
-        "input/maps — run from a workspace, see tools/tpu_validate.py)"
+        "input/maps — run from a workspace whose input/ holds them)"
     )
     w_t, h_t = ms.dmap_wh
     print(f"scene: {ms.n_tris} tris, {w_t}x{h_t} diffuse map, "

@@ -7,7 +7,7 @@ Usage:
 
 Defaults orbit the reference's simple_shapes.scene. The first frame
 pays the jit compile; every further frame is pure device compute
-(the camera is pytree-leaf data — see rendering_tpu/render/animation.py).
+(the camera is pytree-leaf data — see rendering_jax/render/animation.py).
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="turntable")
     ns = p.parse_args(argv)
 
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.render.animation import orbit_cameras, render_frames
-    from rendering_tpu.utils.bmp import save_bmp
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.render.animation import orbit_cameras, render_frames
+    from rendering_jax.utils.bmp import save_bmp
 
     scene = load_scene(ns.scene)
     center = tuple(float(v) for v in ns.center.split(","))

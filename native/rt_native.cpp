@@ -1,15 +1,15 @@
-// rt_native — native host runtime for rendering_tpu.
+// rt_native — native host runtime for rendering_jax.
 //
-// The reference engine is 100% C++ (SURVEY section 2); the TPU compute
+// The reference engine is 100% C++ (SURVEY section 2); the device compute
 // path here is JAX/XLA, but the host-side scene pipeline (OBJ parsing,
 // mesh transform, SAH BVH construction) is implemented natively too:
 // for 250k-triangle meshes the Python/numpy builder costs seconds while
 // this library does the same work in tens of milliseconds.
 //
 // SEMANTICS CONTRACT: bit-for-bit float32 parity with the Python
-// implementations in rendering_tpu/models/objloader.py and
-// rendering_tpu/accel/bvh.py (which themselves replicate the reference
-// /root/reference/src/objects.cpp:177-763 quirks: FLT_MIN max-init,
+// implementations in rendering_jax/models/objloader.py and
+// rendering_jax/accel/bvh.py (which themselves replicate the reference
+// reference's src/objects.cpp:177-763 quirks: FLT_MIN max-init,
 // normalize-on-first-face, rotated-size root bounds, duplication-based
 // SAH splits, depth*ac_penalty leaf rule). Equality is enforced by
 // tests/test_native.py on the bundled assets.

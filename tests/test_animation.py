@@ -7,11 +7,11 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from rendering_tpu.models.parser import LightDef, ObjectDef, SceneDef
-from rendering_tpu.models.scene import build_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.models.objloader import euler_matrix
-from rendering_tpu.render.animation import (
+from rendering_jax.models.parser import LightDef, ObjectDef, SceneDef
+from rendering_jax.models.scene import build_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.models.objloader import euler_matrix
+from rendering_jax.render.animation import (
     look_at_rotation,
     orbit_cameras,
     render_frames,
@@ -65,7 +65,7 @@ def _tiny_scene():
 
 
 def test_render_frames_matches_single_renders_and_compiles_once():
-    from rendering_tpu.render.pipeline import render, render_scene
+    from rendering_jax.render.pipeline import render, render_scene
 
     scene = _tiny_scene()
     cams = orbit_cameras((0, 0, -4), 3.5, 3, elevation_deg=10.0)
@@ -89,7 +89,7 @@ def test_render_frames_matches_single_renders_and_compiles_once():
 def test_render_frames_sharded_matches():
     import jax
 
-    from rendering_tpu.parallel.shard import make_ray_mesh
+    from rendering_jax.parallel.shard import make_ray_mesh
 
     scene = _tiny_scene()
     cams = orbit_cameras((0, 0, -4), 3.5, 2)
@@ -101,7 +101,7 @@ def test_render_frames_sharded_matches():
 
 
 def test_render_frames_out_u8_matches_quantized():
-    from rendering_tpu.utils.bmp import quantize_reference
+    from rendering_jax.utils.bmp import quantize_reference
 
     scene = _tiny_scene()
     cams = orbit_cameras((0, 0, -4), 3.5, 2)
@@ -117,8 +117,8 @@ def test_render_frames_pipelined_matches():
     sharded), including the u8 mode."""
     import jax
 
-    from rendering_tpu.parallel.shard import make_ray_mesh
-    from rendering_tpu.render.animation import render_frames_pipelined
+    from rendering_jax.parallel.shard import make_ray_mesh
+    from rendering_jax.render.animation import render_frames_pipelined
 
     scene = _tiny_scene()
     cams = orbit_cameras((0, 0, -4), 3.5, 4)
@@ -150,8 +150,8 @@ def test_render_frames_pipelined_escalates_ssaa_overflow():
     must be redone exactly (same pixels as the escalating wrapper)."""
     import dataclasses
 
-    from rendering_tpu.render.animation import render_frames_pipelined
-    from rendering_tpu.render.pipeline import render
+    from rendering_jax.render.animation import render_frames_pipelined
+    from rendering_jax.render.pipeline import render
 
     scene = _tiny_scene()
     st = scene.static

@@ -1,6 +1,6 @@
 import numpy as np
 
-from rendering_tpu.utils.bmp import (
+from rendering_jax.utils.bmp import (
     bmp_to_image,
     decode_bmp,
     encode_bmp,
@@ -65,7 +65,7 @@ def test_padded_width_file_length_matches_header():
     emit exactly the declared length, deterministically (zeros)."""
     import struct
 
-    from rendering_tpu.utils.bmp import encode_bmp
+    from rendering_jax.utils.bmp import encode_bmp
 
     img = np.linspace(0, 1, 7 * 5 * 3, dtype=np.float32).reshape(5, 7, 3)
     raw = encode_bmp(img)

@@ -1,11 +1,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rendering_tpu.accel.bvh import build_bvh
-from rendering_tpu.models.scene import MeshData
-from rendering_tpu.ops.geometry import FLT_MAX
-from rendering_tpu.ops.intersect import ray_triangle
-from rendering_tpu.ops.traversal import traverse_bvh
+from rendering_jax.accel.bvh import build_bvh
+from rendering_jax.models.scene import MeshData
+from rendering_jax.ops.geometry import FLT_MAX
+from rendering_jax.ops.intersect import ray_triangle
+from rendering_jax.ops.traversal import traverse_bvh
 
 
 def _random_tris(n, seed=0):

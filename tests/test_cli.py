@@ -7,6 +7,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import pytest
 
 SCENE = """[options]
 width=64
@@ -34,8 +35,8 @@ radius=1.5
 
 
 def _run(tmp_path, capsys, progress, extra_args=()):
-    from rendering_tpu.cli import main
-    from rendering_tpu.utils.bmp import bmp_to_image, load_bmp
+    from rendering_jax.cli import main
+    from rendering_jax.utils.bmp import bmp_to_image, load_bmp
 
     scene_path = tmp_path / "cli_smoke.scene"
     scene_path.write_text(SCENE.format(progress=progress))
@@ -66,10 +67,10 @@ def test_cli_stats_table_and_output(tmp_path, capsys):
 
 def test_cli_trace_dir_captures_profile(tmp_path, capsys):
     """--trace-dir wraps the render phase in a jax.profiler trace
-    (SURVEY §5.1's TPU profiling equivalent) and leaves an .xplane.pb
+    (SURVEY §5.1's device profiling) and leaves an .xplane.pb
     capture behind."""
-    from rendering_tpu.cli import main
-    from rendering_tpu.utils.profiling import find_xplanes
+    from rendering_jax.cli import main
+    from rendering_jax.utils.profiling import find_xplanes
 
     scene_path = tmp_path / "cli_smoke.scene"
     scene_path.write_text(SCENE.format(progress=0))
@@ -144,8 +145,8 @@ name=input/objects/cli_tris.obj
 
 
 def _run_mesh(tmp_path, capsys, progress, extra_args=()):
-    from rendering_tpu.cli import main
-    from rendering_tpu.utils.bmp import bmp_to_image, load_bmp
+    from rendering_jax.cli import main
+    from rendering_jax.utils.bmp import bmp_to_image, load_bmp
 
     (tmp_path / "input" / "objects").mkdir(parents=True, exist_ok=True)
     (tmp_path / "input" / "objects" / "cli_tris.obj").write_text(MESH_OBJ)
@@ -165,19 +166,46 @@ def _run_mesh(tmp_path, capsys, progress, extra_args=()):
     return img
 
 
-def test_cli_geo_shard_matches(tmp_path, capsys):
+def _interpret_kernel(monkeypatch):
+    """Build every scene the CLI loads with the intersection kernel in
+    Pallas interpret mode (the CPU stand-in for the compiled kernel)."""
+    import rendering_jax.cli as cli
+    from rendering_jax.models.settings import RenderSettings
+
+    load = cli.load_scene
+
+    def load_interpreted(path, base=None):
+        base = (base or RenderSettings()).replace(pallas_interpret=True)
+        return load(path, base)
+
+    monkeypatch.setattr(cli, "load_scene", load_interpreted)
+
+
+def test_cli_geo_shard_needs_kernel(tmp_path, capsys):
+    """On the CPU, without the (interpreted) kernel, --geo-shard stops
+    with a usage error instead of rendering a geometry-free frame."""
+    with pytest.raises(SystemExit) as exc:
+        _run_mesh(tmp_path, capsys, progress=0, extra_args=("--geo-shard",
+                                                            "2"))
+    assert exc.value.code == 2
+    assert "needs the intersection kernel" in capsys.readouterr().err
+
+
+def test_cli_geo_shard_matches(tmp_path, capsys, monkeypatch):
     """--geo-shard G renders with the geometry sharded over G of the 8
-    virtual devices (beyond-HBM path: nothing O(T) replicated): G=2
-    must match G=1 (one geometry shard IS the replicated path)
-    u8-exactly on both the one-shot and outputProgress strip paths,
-    and the single-device render up to the documented 1-ulp primary
-    raygen divergence (knife-edge pixels only)."""
-    img_g1 = _run_mesh(tmp_path, capsys, progress=0,
-                       extra_args=("--geo-shard", "1"))
-    img_geo = _run_mesh(tmp_path, capsys, progress=0,
-                        extra_args=("--geo-shard", "2"))
-    img_geo_prog = _run_mesh(tmp_path, capsys, progress=1,
-                             extra_args=("--geo-shard", "2"))
+    virtual devices (nothing O(T) replicated; the kernel interpreted on
+    the CPU): G=2 must match G=1 (one geometry shard IS the replicated
+    path) u8-exactly on both the one-shot and outputProgress strip
+    paths, and the single-device render up to the documented 1-ulp
+    primary raygen divergence (knife-edge pixels only)."""
+    with monkeypatch.context() as m:
+        _interpret_kernel(m)
+        img_g1 = _run_mesh(tmp_path, capsys, progress=0,
+                           extra_args=("--geo-shard", "1"))
+        img_geo = _run_mesh(tmp_path, capsys, progress=0,
+                            extra_args=("--geo-shard", "2"))
+        img_geo_prog = _run_mesh(tmp_path, capsys, progress=1,
+                                 extra_args=("--geo-shard", "2"))
     assert np.unique(img_g1.reshape(-1, 3), axis=0).shape[0] > 1
     np.testing.assert_array_equal(img_g1, img_geo)
     np.testing.assert_array_equal(img_g1, img_geo_prog)

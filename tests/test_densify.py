@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from rendering_tpu.flagship import _split_bary, _subdiv_bary, densify_mesh
-from rendering_tpu.models.objloader import MeshArrays
+from rendering_jax.flagship import _split_bary, _subdiv_bary, densify_mesh
+from rendering_jax.models.objloader import MeshArrays
 
 
 def _octahedron() -> MeshArrays:
@@ -104,7 +104,7 @@ def test_densify_rays_cannot_escape_level_boundary():
     """End-to-end pinhole probe: fire a dense ray grid at the displaced
     mixed-level octahedron; every ray through the silhouette interior
     must hit (a T-junction crack lets some escape)."""
-    from rendering_tpu.ops.bruteforce import bruteforce_mesh
+    from rendering_jax.ops.bruteforce import bruteforce_mesh
     import jax.numpy as jnp
     import types
 

@@ -4,9 +4,9 @@ pipeline is pure and the CI asserts it stays that way."""
 
 import numpy as np
 
-from rendering_tpu.models.scene import load_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.render.pipeline import render
+from rendering_jax.models.scene import load_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.render.pipeline import render
 
 
 def test_bitwise_deterministic(in_workspace):
@@ -35,8 +35,8 @@ def test_render_resumable_matches_and_resumes(tmp_path):
 
     import numpy as np
 
-    from rendering_tpu.flagship import build_tiny_scene
-    from rendering_tpu.render.pipeline import render, render_resumable
+    from rendering_jax.flagship import build_tiny_scene
+    from rendering_jax.render.pipeline import render, render_resumable
 
     scene = build_tiny_scene(width=48, height=40, n_tris=64)
     ref, _ = render(scene)
@@ -46,7 +46,7 @@ def test_render_resumable_matches_and_resumes(tmp_path):
     np.testing.assert_allclose(out, ref, atol=1e-6)
 
     # simulate preemption: drop the last strip from the checkpoint
-    from rendering_tpu.diff.checkpoint import load_checkpoint, save_checkpoint
+    from rendering_jax.diff.checkpoint import load_checkpoint, save_checkpoint
 
     _s, _p, _o, frame_ck, mask = load_checkpoint(ck, {}, {})
     mask = np.asarray(mask).copy()
@@ -68,7 +68,7 @@ def test_sharded_bitwise_deterministic(in_workspace):
 
     import jax
 
-    from rendering_tpu.parallel.shard import make_ray_mesh, render_sharded
+    from rendering_jax.parallel.shard import make_ray_mesh, render_sharded
 
     scene = load_scene(
         "t01_simple_shapes.scene",

@@ -1,9 +1,9 @@
 """Fused multi-mesh intersection (ops.pallas_intersect.FusedTables).
 
 The reference's closest-hit loop visits every object per ray at no
-per-object launch cost (src/scene.cpp:724-756); the TPU build fuses
+per-object launch cost (src/scene.cpp:724-756); this build fuses
 all meshes' chunk tables into ONE kernel dispatch per ray block so
-mesh count never multiplies pre-culls or Mosaic launches
+mesh count never multiplies pre-culls or kernel launches
 (render.integrator.trace_closest / trace_occlusion fused branches).
 
 These tests run the REAL kernel code path in Pallas interpreter mode
@@ -22,12 +22,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rendering_tpu.flagship import build_multimesh_scene, procedural_mesh
-from rendering_tpu.models.parser import LightDef, ObjectDef, SceneDef
-from rendering_tpu.models.scene import build_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.render.pipeline import render_scene
-from rendering_tpu.utils.bmp import quantize_reference
+from rendering_jax.flagship import build_multimesh_scene, procedural_mesh
+from rendering_jax.models.parser import LightDef, ObjectDef, SceneDef
+from rendering_jax.models.scene import build_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.render.pipeline import render_scene
+from rendering_jax.utils.bmp import quantize_reference
 
 
 def _two_mesh_scene(transparent_second=False, interpret=False):
@@ -171,50 +171,3 @@ def test_fused_grad_matches_per_mesh():
         assert np.all(np.isfinite(gr)) and np.all(np.isfinite(gf))
         assert np.abs(gr).sum() > 0  # connected
         np.testing.assert_allclose(gf, gr, rtol=1e-4, atol=1e-6)
-
-
-def _one_mesh_scene(settings):
-    sd = SceneDef(settings=settings)
-    sd.lights = [
-        LightDef("point", color=(1, 0.9, 0.8), intensity=0.7,
-                 pos=(0, 2, -1)),
-        LightDef("distant", color=(1, 1, 1), intensity=0.3,
-                 dir=(0.2, -1, -0.4)),
-    ]
-    mesh_a = ObjectDef(
-        "mesh", pos=(-0.8, 0.0, -3.0), size=(1.4, 1.4, 1.4),
-        color=(0.9, 0.5, 0.3), material="phong", ambient=0.3,
-        diffuse=0.4, specular=0.3, n_specular=10.0,
-    )
-    mesh_a.mesh = procedural_mesh(150, pos=(-0.8, 0.0, -3.0),
-                                  size=(1.4, 1.4, 1.4), seed=1)
-    sd.objects = [
-        ObjectDef("plane", pos=(0, -1.5, 0), normal=(0, 1, 0),
-                  color=(0.85, 0.85, 0.85)),
-        mesh_a,
-    ]
-    return build_scene(sd)
-
-
-def test_anyhit_chunk_shape_is_output_invariant():
-    """settings.anyhit_tri_chunk bakes separate shadow tables (the
-    docs/PERF.md chunk-shape experiment); any shape must be u8-exact
-    against the default shared tables — chunking is pure work
-    partitioning, never semantics. Tables bake at build time, so both
-    scenes build from scratch."""
-    st = RenderSettings(
-        width=64, height=48, enable_ssaa=False, enable_output=False,
-        output_progress=False, background_color=(0.2, 0.2, 0.25),
-        pallas_interpret=True,
-    )
-    scene_default = _one_mesh_scene(st)
-    scene_alt = _one_mesh_scene(
-        st.replace(anyhit_tri_chunk=32, anyhit_n_sub=4)
-    )
-    assert scene_alt.meshes[0].itables_anyhit is not None
-    assert scene_default.meshes[0].itables_anyhit is None
-    f0, _ = render_scene(scene_default)
-    f1, _ = render_scene(scene_alt)
-    a = quantize_reference(np.asarray(f0).transpose(1, 2, 0))
-    b = quantize_reference(np.asarray(f1).transpose(1, 2, 0))
-    np.testing.assert_array_equal(a, b)

@@ -15,15 +15,15 @@ import jax
 import numpy as np
 import pytest
 
-from rendering_tpu.flagship import build_multimesh_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.parallel.geoshard import (
+from rendering_jax.flagship import build_multimesh_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.parallel.geoshard import (
     make_geo_mesh,
     pad_fused_for_shards,
     render_scene_geo_sharded,
 )
-from rendering_tpu.render.pipeline import render_scene
-from rendering_tpu.utils.bmp import quantize_reference
+from rendering_jax.render.pipeline import render_scene
+from rendering_jax.utils.bmp import quantize_reference
 
 
 def _scenes(n_meshes, tris_per_mesh):
@@ -175,7 +175,7 @@ def test_geo_host_wrapper_and_u8():
     """render_geo_sharded returns the host (H, W, 3) frame with the
     escalation wrapper; out_u8 returns exactly the BMP writer's codes
     for the f32 frame."""
-    from rendering_tpu.parallel.geoshard import render_geo_sharded
+    from rendering_jax.parallel.geoshard import render_geo_sharded
 
     _, sharded = _scenes(n_meshes=2, tris_per_mesh=90)
     mesh = make_geo_mesh(jax.devices()[:4], n_geo=2)
@@ -192,7 +192,7 @@ def test_geo_progress_and_resumable_strips(tmp_path):
     render (same pixel_dirs raygen, disjoint strip queues), the SSAA
     tail must run sharded, and a finished checkpoint must replay
     identically."""
-    from rendering_tpu.render.pipeline import (
+    from rendering_jax.render.pipeline import (
         render_resumable,
         render_with_progress,
     )
@@ -226,8 +226,8 @@ def test_geo_memory_accounting_scales_1M():
     (tables padded G-divisible), they halve when G doubles, and the
     replicated remainder is O(1) in triangle count (the same bytes a
     100x smaller scene replicates, within small padding slack)."""
-    from rendering_tpu.flagship import build_flagship_scene
-    from rendering_tpu.parallel.geoshard import geo_shard_memory_accounting
+    from rendering_jax.flagship import build_flagship_scene
+    from rendering_jax.parallel.geoshard import geo_shard_memory_accounting
 
     def build(n):
         return build_flagship_scene(
@@ -275,9 +275,9 @@ def test_geo_transparent_shadow_tables_path():
     table build) — the geo-sharded path then ships BOTH table sets
     through shard_map (the s_* specs). That branch must match the
     1-geo-shard run u8-exactly, shade-sharded included."""
-    from rendering_tpu.flagship import procedural_mesh
-    from rendering_tpu.models.parser import LightDef, ObjectDef, SceneDef
-    from rendering_tpu.models.scene import build_scene
+    from rendering_jax.flagship import procedural_mesh
+    from rendering_jax.models.parser import LightDef, ObjectDef, SceneDef
+    from rendering_jax.models.scene import build_scene
 
     st = RenderSettings(
         width=48, height=32, max_ray_depth=3, enable_ssaa=False,
@@ -325,7 +325,7 @@ def test_geo_shard_build_stages_nothing_per_triangle_on_device():
     shard_map's in_specs transfer each device only its shard at render
     time, and _strip_mesh_heavy replaces the rest. An unconditional
     device copy at build time would OOM before shard_map ever ran."""
-    from rendering_tpu.flagship import build_multimesh_scene
+    from rendering_jax.flagship import build_multimesh_scene
 
     scene = build_multimesh_scene(
         32, 24, n_meshes=2, tris_per_mesh=60,
@@ -357,7 +357,7 @@ def test_bake_per_mesh_tables_false_single_mesh_raises():
     sharding would leave the mesh with NO kernel tables (fused baking
     is gated on >= 2 meshes) — build_scene must fail loudly instead of
     letting the Pallas path crash building tables under jit."""
-    from rendering_tpu.flagship import build_multimesh_scene
+    from rendering_jax.flagship import build_multimesh_scene
 
     with pytest.raises(ValueError, match="neither per-mesh nor fused"):
         build_multimesh_scene(32, 24, n_meshes=1, tris_per_mesh=60,
@@ -367,7 +367,7 @@ def test_bake_per_mesh_tables_false_single_mesh_raises():
 def test_pad_vgeo_for_shards():
     import jax.numpy as jnp
 
-    from rendering_tpu.parallel.geoshard import pad_vgeo_for_shards
+    from rendering_jax.parallel.geoshard import pad_vgeo_for_shards
 
     v = jnp.arange(30 * 7, dtype=jnp.float32).reshape(30, 7)
     for g in (2, 3, 4, 7):

@@ -20,10 +20,10 @@ import os
 import numpy as np
 import pytest
 
-from rendering_tpu.models.scene import load_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.render.pipeline import render
-from rendering_tpu.utils.bmp import bmp_to_image, load_bmp, quantize_reference
+from rendering_jax.models.scene import load_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.render.pipeline import render
+from rendering_jax.utils.bmp import bmp_to_image, load_bmp, quantize_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,9 +57,9 @@ SCENES = [
 DEFAULT_TOL = (0.006, 0.005, 0.001)
 
 # Per-scene budgets: <= 1.5x the fractions measured against the
-# committed goldens in round 4 (CPU and TPU agree to ~1e-5; floors of
-# 5e-5 absorb platform jitter on the scenes that currently match
-# exactly) — so a localized shading bug cannot hide inside a blanket
+# committed goldens in round 4 (CPU and device runs agreed to ~1e-5;
+# floors of 5e-5 absorb platform jitter on the scenes that currently
+# match exactly) — so a localized shading bug cannot hide inside a blanket
 # silhouette allowance (round-3 review point; the round-1 point about
 # blanket budgets applies a fortiori).
 SCENE_TOL = {

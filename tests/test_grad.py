@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rendering_tpu.models.parser import LightDef, ObjectDef, SceneDef
-from rendering_tpu.models.scene import build_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.render.pipeline import render_scene
+from rendering_jax.models.parser import LightDef, ObjectDef, SceneDef
+from rendering_jax.models.scene import build_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.render.pipeline import render_scene
 
 
 def _small_scene(**settings_kw):
@@ -126,7 +126,7 @@ def test_grad_mesh_vertex_matches_fd():
     the vT/nT re-derivation in render_scene (pipeline.derive_mesh_tables):
     the build-time transposed tables are unconnected constants, so
     without the in-graph derivation this gradient is silently zero."""
-    from rendering_tpu.flagship import procedural_mesh
+    from rendering_jax.flagship import procedural_mesh
 
     st = RenderSettings(
         width=24, height=18, enable_ssaa=False, enable_output=False,
@@ -176,7 +176,7 @@ def test_grad_mesh_vertex_matches_fd():
 
 def test_grad_mesh_normal_nonzero():
     """Normals are trainable leaves: d(loss)/d(n) must be connected."""
-    from rendering_tpu.flagship import procedural_mesh
+    from rendering_jax.flagship import procedural_mesh
 
     st = RenderSettings(
         width=16, height=12, enable_ssaa=False, enable_output=False,
@@ -199,6 +199,22 @@ def test_grad_mesh_normal_nonzero():
     assert float(jnp.sum(jnp.abs(g))) > 0.0
 
 
+def test_euler_matrix_j_has_no_default_precision_matmul():
+    """A default-precision f32 matmul may run in TF32 on a GPU; the
+    camera-gradient rotation must ask for full f32 explicitly."""
+    import jax
+    import jax.numpy as jnp
+
+    from rendering_jax.ops.geometry import euler_matrix_j
+
+    jaxpr = jax.make_jaxpr(euler_matrix_j)(jnp.zeros((3,), jnp.float32))
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots, "expected the composition as dot_general"
+    hi = jax.lax.Precision.HIGHEST
+    for e in dots:
+        assert e.params["precision"] == (hi, hi), e.params["precision"]
+
+
 def test_euler_matrix_j_matches_parity_build():
     """ops.geometry.euler_matrix_j (the differentiable rotation used
     for camera/object angle gradients) must agree with the f32-exact
@@ -207,8 +223,8 @@ def test_euler_matrix_j_matches_parity_build():
     import jax.numpy as jnp
     import numpy as np
 
-    from rendering_tpu.models.objloader import euler_matrix
-    from rendering_tpu.ops.geometry import euler_matrix_j
+    from rendering_jax.models.objloader import euler_matrix
+    from rendering_jax.ops.geometry import euler_matrix_j
 
     for rot in [(0, 0, 0), (10, -30, 77), (-50, 0, 0), (123, 45, -9)]:
         np.testing.assert_allclose(
@@ -233,8 +249,8 @@ def test_sphere_tangency_gradient_finite():
     import jax.numpy as jnp
     import numpy as np
 
-    from rendering_tpu.ops.geometry import FLT_MAX
-    from rendering_tpu.ops.intersect import (
+    from rendering_jax.ops.geometry import FLT_MAX
+    from rendering_jax.ops.intersect import (
         intersect_spheres,
         intersect_spheres_r,
     )
@@ -262,3 +278,40 @@ def test_sphere_tangency_gradient_finite():
 
     g2 = jax.grad(loss)(jnp.asarray([[0.0, 1.0, 0.0]]))
     assert np.isfinite(np.asarray(g2)).all(), g2
+
+
+@pytest.mark.parametrize("n_objects", [2, 8, 9])
+def test_per_object_lookup_matches_gather(n_objects):
+    """Per-object tables read by selects (up to _SELECT_MAX_OBJECTS) give
+    the gather's values, misses (obj = -1) included, and its gradients;
+    their backward pass holds no scatter-add (a GPU scatter-add sums in
+    no fixed order). Past the limit the gather stays."""
+    from rendering_jax.render.integrator import (
+        _SELECT_MAX_OBJECTS,
+        _per_obj,
+        _per_obj3,
+    )
+
+    rng = np.random.default_rng(n_objects)
+    obj = jnp.asarray(rng.integers(-1, n_objects, 257), jnp.int32)
+    t1 = jnp.asarray(rng.normal(size=(n_objects,)), jnp.float32)
+    t3 = jnp.asarray(rng.normal(size=(n_objects, 3)), jnp.float32)
+    w1 = jnp.asarray(rng.normal(size=(257,)), jnp.float32)
+    w3 = jnp.asarray(rng.normal(size=(3, 257)), jnp.float32)
+
+    def loss(t1, t3):
+        return (jnp.sum(_per_obj(t1, obj, n_objects) * w1)
+                + jnp.sum(_per_obj3(t3, obj, n_objects) * w3))
+
+    def loss_gather(t1, t3):
+        return jnp.sum(t1[obj] * w1) + jnp.sum(t3.T[:, obj] * w3)
+
+    np.testing.assert_array_equal(_per_obj(t1, obj, n_objects), t1[obj])
+    np.testing.assert_array_equal(_per_obj3(t3, obj, n_objects),
+                                  t3.T[:, obj])
+    got = jax.grad(loss, argnums=(0, 1))(t1, t3)
+    want = jax.grad(loss_gather, argnums=(0, 1))(t1, t3)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+    jaxpr = str(jax.make_jaxpr(jax.grad(loss, argnums=(0, 1)))(t1, t3))
+    assert ("scatter-add" in jaxpr) == (n_objects > _SELECT_MAX_OBJECTS)

@@ -1,5 +1,5 @@
 """Camera-parameter gradient check against the COMPILED C++ REFERENCE
-(VERDICT r4 next-step 4; closes the FD matrix over the scene-file
+(closes the FD matrix over the scene-file
 parameter space: lights, colors, vertices, texels, skybox, background,
 and now camera pose).
 
@@ -68,7 +68,7 @@ BASE = {"px": 0.0, "py": 0.0, "pz": 0.0, "rx": 50.0}
 
 
 def _ref_mean(ws, binary, **params):
-    from rendering_tpu.utils.bmp import bmp_to_image, load_bmp
+    from rendering_jax.utils.bmp import bmp_to_image, load_bmp
 
     with open(os.path.join(ws, "fdcam.scene"), "w") as f:
         f.write(SCENE_TMPL.format(**params))
@@ -90,10 +90,10 @@ def _ref_mean(ws, binary, **params):
 def test_camera_grads_match_reference_fd(workspace):
     from gen_goldens import build_reference
 
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
-    from rendering_tpu.ops.geometry import euler_matrix_j
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
+    from rendering_jax.ops.geometry import euler_matrix_j
+    from rendering_jax.render.pipeline import render_scene
 
     binary = build_reference(ssaa=False)
     ws = str(workspace)

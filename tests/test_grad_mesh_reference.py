@@ -108,12 +108,12 @@ def _write_obj(path, z):
 
 
 def _ref_mean(ws, binary, z):
-    from rendering_tpu.utils.bmp import bmp_to_image, load_bmp
+    from rendering_jax.utils.bmp import bmp_to_image, load_bmp
 
     # ws/input is a REAL directory owned by the fixture; ws/input/objects
     # is a symlink into the read-only reference tree, so the generated
     # OBJ must NOT go there (writing through the symlink would pollute
-    # /root/reference).
+    # the reference tree).
     _write_obj(os.path.join(ws, "input", "fdmesh.obj"), z)
     with open(os.path.join(ws, "fdmesh.scene"), "w") as f:
         f.write(SCENE_TMPL)
@@ -130,10 +130,10 @@ def _ref_mean(ws, binary, z):
 def test_vertex_grad_matches_reference_fd(workspace):
     from gen_goldens import build_reference
 
-    from rendering_tpu.diff.inverse import apply_params, extract_params
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.diff.inverse import apply_params, extract_params
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
+    from rendering_jax.render.pipeline import render_scene
 
     binary = build_reference(ssaa=False)
     ws = str(workspace)
@@ -173,8 +173,8 @@ def test_vertex_grad_matches_reference_fd(workspace):
     # face mp[t]), so gradient rows must be mapped back to emit-order
     # faces through the same permutation it computes (morton_order on
     # the loaded, pre-permutation vertices).
-    from rendering_tpu.accel.bvh import morton_order
-    from rendering_tpu.models.objloader import load_obj
+    from rendering_jax.accel.bvh import morton_order
+    from rendering_jax.models.objloader import load_obj
 
     m_load = load_obj(
         os.path.join(ws, "input", "fdmesh.obj"),

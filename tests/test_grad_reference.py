@@ -83,7 +83,7 @@ BASE = {"intensity": 0.3, "red": 0.6}
 
 def _ref_mean(ws, binary, **params):
     """Render the scene with the reference binary; return mean(u8)/255."""
-    from rendering_tpu.utils.bmp import bmp_to_image, load_bmp
+    from rendering_jax.utils.bmp import bmp_to_image, load_bmp
 
     scene_path = os.path.join(ws, "fdgrad.scene")
     with open(scene_path, "w") as f:
@@ -98,10 +98,10 @@ def _ref_mean(ws, binary, **params):
 
 
 def _our_loss_and_grads(ws):
-    from rendering_tpu.diff.inverse import apply_params, extract_params
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.diff.inverse import apply_params, extract_params
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
+    from rendering_jax.render.pipeline import render_scene
 
     scene_path = os.path.join(ws, "fdgrad.scene")
     with open(scene_path, "w") as f:

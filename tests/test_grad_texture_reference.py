@@ -1,6 +1,6 @@
 """Texture-texel and background-color gradients vs the COMPILED C++
 REFERENCE (SURVEY section 4.3; extends test_grad_reference.py to map
-texels — VERDICT r3 #6).
+texels).
 
 A diffuse-map BMP is perturbed by a u8 step on a texel block, the
 patched SSAA-off reference re-renders, and the finite difference of
@@ -94,7 +94,7 @@ def _perturbed_map_u8(delta: int) -> np.ndarray:
 
 
 def _write_map(ws: str, u8_img: np.ndarray) -> None:
-    from rendering_tpu.utils.bmp import save_bmp
+    from rendering_jax.utils.bmp import save_bmp
 
     save_bmp(os.path.join(ws, "input", "maps", "fdtex_diffuse.bmp"), u8_img)
 
@@ -108,7 +108,7 @@ def _write_scene(ws: str, bg) -> str:
 
 
 def _ref_mean(ws: str, binary: str) -> float:
-    from rendering_tpu.utils.bmp import bmp_to_image, load_bmp
+    from rendering_jax.utils.bmp import bmp_to_image, load_bmp
 
     subprocess.run(
         [binary, "fdtex.scene"], cwd=ws, check=True,
@@ -119,8 +119,8 @@ def _ref_mean(ws: str, binary: str) -> float:
 
 
 def _load_scene(ws: str):
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
 
     old = os.getcwd()
     os.chdir(ws)
@@ -133,7 +133,7 @@ def _load_scene(ws: str):
 def _loaded_map(ws: str, u8_img: np.ndarray) -> np.ndarray:
     """Round-trip a map image through the parser's loader to get the
     exact (H*W, 3) float texel array our renderer would see."""
-    from rendering_tpu.models.parser import _load_map
+    from rendering_jax.models.parser import _load_map
 
     _write_map(ws, u8_img)
     flat, wh = _load_map(os.path.join(ws, "input", "maps",
@@ -154,7 +154,7 @@ def test_texture_and_background_grads_match_reference_fd(workspace):
     _write_scene(ws, BASE_BG)
     scene = _load_scene(ws)
 
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.render.pipeline import render_scene
 
     def loss_fn(dmap, bg):
         import dataclasses
@@ -247,7 +247,7 @@ def _sky_perturbed_u8(delta: int) -> np.ndarray:
 
 
 def _write_sky(ws: str, front_u8: np.ndarray) -> None:
-    from rendering_tpu.utils.bmp import save_bmp
+    from rendering_jax.utils.bmp import save_bmp
 
     for i in range(6):
         img = front_u8 if i == 1 else _sky_base_u8(i)
@@ -258,7 +258,7 @@ def _loaded_face(ws: str, u8_img: np.ndarray) -> np.ndarray:
     """Round-trip the front face through the parser's skybox decoder
     (load_bmp_float: /256, loadBMP row order) so quantization and
     layout cancel in the delta."""
-    from rendering_tpu.utils.bmp import load_bmp_float, save_bmp
+    from rendering_jax.utils.bmp import load_bmp_float, save_bmp
 
     p = os.path.join(ws, "input", "maps", "sb1.bmp")
     save_bmp(p, u8_img)
@@ -288,9 +288,9 @@ def test_skybox_texel_grads_match_reference_fd(workspace):
         f.write(SKY_SCENE_TMPL)
     os.makedirs(os.path.join(ws, "golden"), exist_ok=True)
 
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
+    from rendering_jax.render.pipeline import render_scene
 
     old = os.getcwd()
     os.chdir(ws)
@@ -314,7 +314,7 @@ def test_skybox_texel_grads_match_reference_fd(workspace):
     g_dot = float((g_sky[1] * d_face).sum())
 
     def ref_mean_sky(front_u8):
-        from rendering_tpu.utils.bmp import bmp_to_image, load_bmp
+        from rendering_jax.utils.bmp import bmp_to_image, load_bmp
 
         _write_sky(ws, front_u8)
         subprocess.run(

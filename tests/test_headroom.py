@@ -2,15 +2,15 @@
 recursion never drops paths (scene.cpp:892-941 recurses unboundedly),
 so when the 2^depth continuation tree outgrows one queue slot per
 input ray the host wrappers must redo with a bigger queue instead of
-weight-dropping (VERDICT round-1 weak item 6)."""
+weight-dropping."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from rendering_tpu.models.parser import LightDef, ObjectDef, SceneDef
-from rendering_tpu.models.scene import build_scene
-from rendering_tpu.models.settings import RenderSettings
+from rendering_jax.models.parser import LightDef, ObjectDef, SceneDef
+from rendering_jax.models.scene import build_scene
+from rendering_jax.models.settings import RenderSettings
 
 
 def _glass_heavy_scene(w=32, h=24):
@@ -34,7 +34,7 @@ def _glass_heavy_scene(w=32, h=24):
 
 
 def test_render_escalates_headroom_until_no_drops():
-    from rendering_tpu.render.pipeline import render, render_scene
+    from rendering_jax.render.pipeline import render, render_scene
 
     scene = _glass_heavy_scene()
     # The scene genuinely overflows a headroom-1 queue...
@@ -51,8 +51,8 @@ def test_render_escalates_headroom_until_no_drops():
 def test_render_sharded_escalates_headroom(in_workspace):
     import jax
 
-    from rendering_tpu.parallel.shard import make_ray_mesh, render_sharded
-    from rendering_tpu.render.pipeline import render
+    from rendering_jax.parallel.shard import make_ray_mesh, render_sharded
+    from rendering_jax.render.pipeline import render
 
     scene = _glass_heavy_scene()
     mesh = make_ray_mesh(jax.devices())
@@ -66,7 +66,7 @@ def test_render_sharded_escalates_headroom(in_workspace):
 
 
 def test_progress_and_resumable_escalate(tmp_path):
-    from rendering_tpu.render.pipeline import (
+    from rendering_jax.render.pipeline import (
         render,
         render_resumable,
         render_with_progress,

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rendering_tpu.ops.geometry import FLT_MAX
-from rendering_tpu.ops.intersect import (
+from rendering_jax.ops.geometry import FLT_MAX
+from rendering_jax.ops.intersect import (
     intersect_planes,
     intersect_spheres,
     ray_triangle,

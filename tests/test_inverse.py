@@ -8,16 +8,16 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from rendering_tpu.diff.checkpoint import load_checkpoint, save_checkpoint
-from rendering_tpu.diff.inverse import (
+from rendering_jax.diff.checkpoint import load_checkpoint, save_checkpoint
+from rendering_jax.diff.inverse import (
     apply_params,
     extract_params,
     make_train_step,
 )
-from rendering_tpu.models.parser import LightDef, ObjectDef, SceneDef
-from rendering_tpu.models.scene import build_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.render.pipeline import render_scene
+from rendering_jax.models.parser import LightDef, ObjectDef, SceneDef
+from rendering_jax.models.scene import build_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.render.pipeline import render_scene
 
 
 def _scene(intensity=0.6, color=(1.0, 0.3, 0.2)):
@@ -100,7 +100,7 @@ def test_recover_texture_with_bilinear(monkeypatch):
     texels, so adam converges on every texel the camera actually sees."""
     import optax
 
-    from rendering_tpu.flagship import procedural_mesh
+    from rendering_jax.flagship import procedural_mesh
 
     def scene_with_map(tex):
         st = RenderSettings(
@@ -158,7 +158,7 @@ def test_checkpoint_rejects_structure_mismatch(tmp_path):
     import numpy as np
     import pytest
 
-    from rendering_tpu.diff.checkpoint import load_checkpoint, save_checkpoint
+    from rendering_jax.diff.checkpoint import load_checkpoint, save_checkpoint
 
     path = str(tmp_path / "ck.npz")
     save_checkpoint(path, 3, {"x": np.ones(2)}, {})

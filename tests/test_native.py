@@ -8,12 +8,12 @@ import os
 import numpy as np
 import pytest
 
-from rendering_tpu.accel.bvh import build_bvh_python
-from rendering_tpu.models.objloader import euler_matrix, load_obj_python
-from rendering_tpu.native import build_bvh_native, get_lib, load_obj_native
+from rendering_jax.accel.bvh import build_bvh_python
+from rendering_jax.flagship import REFERENCE_DIR
+from rendering_jax.models.objloader import euler_matrix, load_obj_python
+from rendering_jax.native import build_bvh_native, get_lib, load_obj_native
 
-REFERENCE = os.environ.get("REFERENCE_DIR", "/root/reference")
-OBJS = os.path.join(REFERENCE, "input", "objects")
+OBJS = os.path.join(REFERENCE_DIR, "input", "objects")
 
 pytestmark = pytest.mark.skipif(
     get_lib() is None, reason="native library not built"

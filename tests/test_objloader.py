@@ -1,6 +1,6 @@
 import numpy as np
 
-from rendering_tpu.models.objloader import (
+from rendering_jax.models.objloader import (
     euler_matrix,
     load_obj,
     load_obj_python,

@@ -19,10 +19,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rendering_tpu.diff.inverse import apply_params, extract_params
-from rendering_tpu.flagship import build_tiny_scene
-from rendering_tpu.parallel.overlap import make_sharded_grad_fn
-from rendering_tpu.parallel.shard import make_ray_mesh, render_scene_sharded
+from rendering_jax.diff.inverse import apply_params, extract_params
+from rendering_jax.flagship import build_tiny_scene
+from rendering_jax.parallel.overlap import make_sharded_grad_fn
+from rendering_jax.parallel.shard import make_ray_mesh, render_scene_sharded
 
 PATHS = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 0, "v"))
 

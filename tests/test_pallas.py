@@ -1,11 +1,10 @@
-"""Pallas fused-intersection kernel vs the jnp dense oracle.
+"""Intersection kernel vs the jnp dense oracle.
 
 The kernel (ops/pallas_intersect.py) must return the exact same
 discrete hit (triangle id) as ops/bruteforce.bruteforce_mesh in every
 configuration: both culling modes, root filter on/off, with/without a
-t-limit. Runs in interpreter mode on the CPU test backend; the real
-Mosaic compilation is exercised on TPU by the benchmark and the
-on-TPU golden check.
+t-limit. Runs in Pallas interpret mode on the CPU; the compiled kernel
+is checked on the GPU by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -14,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rendering_tpu.flagship import build_flagship_scene, procedural_mesh
-from rendering_tpu.models.parser import ObjectDef, SceneDef
-from rendering_tpu.models.scene import build_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.ops.bruteforce import bruteforce_mesh
-from rendering_tpu.ops.pallas_intersect import bruteforce_mesh_pallas
+from rendering_jax.flagship import build_flagship_scene, procedural_mesh
+from rendering_jax.models.parser import ObjectDef, SceneDef
+from rendering_jax.models.scene import build_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.ops.bruteforce import bruteforce_mesh
+from rendering_jax.ops.pallas_intersect import bruteforce_mesh_pallas
 
 
 def _rays(r, aim=None, seed=0):
@@ -131,7 +130,7 @@ def test_pallas_anyhit_mode():
 
 def test_pallas_prebuilt_tables_match():
     """Prebuilt tables (scene build) vs in-graph construction: same."""
-    from rendering_tpu.ops.pallas_intersect import build_intersect_tables
+    from rendering_jax.ops.pallas_intersect import build_intersect_tables
 
     scene = build_flagship_scene(width=64, height=32, enable_ssaa=False)
     mesh = scene.meshes[0]
@@ -180,9 +179,9 @@ def test_pallas_rays_row_matches():
 
 def test_pallas_honest_stats():
     """collect_stats=True returns HONEST device-side counters: far
-    fewer Moller-Trumbore evaluations than the dense R*T (the round-1
-    kernel reported R*T unconditionally — VERDICT weak point), and
-    exactly R slab tests per visited live chunk step."""
+    fewer Moller-Trumbore evaluations than the dense R*T (a kernel that
+    reported R*T unconditionally would pass a weaker check), and
+    nothing when the counters are off."""
     scene = build_flagship_scene(width=64, height=32, enable_ssaa=False)
     mesh = scene.meshes[0]
     ro, rd = _rays(512, aim=(-0.1, 0, -0.6), seed=11)
@@ -193,7 +192,7 @@ def test_pallas_honest_stats():
     assert int(tt) > 0, "rays hit the mesh, tests must be counted"
     assert int(tt) < R * T // 2, (int(tt), R * T)
     assert int(bt) > 0
-    # default: counters off (they serialize the kernel's scalar core)
+    # default: counters off (compiled out)
     _, _, bt0, tt0 = bruteforce_mesh_pallas(mesh, ro, rd, interpret=True)
     assert int(tt0) == 0 and int(bt0) == 0
 
@@ -206,7 +205,7 @@ def test_inverted_pad_boxes_are_culled():
     forced n_sub pays n_sub-minus-real zero-triangle Moller-Trumbore
     batches per live super per tile (pure wasted work), and geo-shard
     padding supers add dead grid steps to every tile."""
-    from rendering_tpu.ops.pallas_intersect import (
+    from rendering_jax.ops.pallas_intersect import (
         _FMAX, _tile_live_exact, build_intersect_tables,
     )
 
@@ -247,85 +246,23 @@ def test_inverted_pad_boxes_are_culled():
 
 
 def test_ray_tile_validation():
-    """Non-power-of-two ray tiles would silently skip the tail rays of
-    every tile in the kernel's lane-slice loop — rejected loudly."""
+    """A ray tile is one Triton block of rays: a power of two of at
+    least one warp (32) and at most 4096. Anything else is rejected
+    loudly instead of compiling a kernel that drops rays."""
     import pytest
+
+    from rendering_jax.ops.pallas_intersect import check_ray_tile
 
     scene = build_flagship_scene(width=16, height=8, enable_ssaa=False)
     mesh = scene.meshes[0]
     ro, rd = _rays(64, aim=(-0.1, 0, -0.6), seed=5)
-    for bad in (1536, 0, 8192, 96):
+    for bad in (1536, 0, 8192, 96, 16):
         with pytest.raises(ValueError, match="ray_tile"):
             bruteforce_mesh_pallas(
                 mesh, ro, rd, interpret=True, ray_tile=bad
             )
-
-
-def _overflow_mesh(n_tris=700, rays=200, seed=11):
-    """Workload whose live-pair total exceeds a 1x-n_tiles bucket
-    ladder (rays aimed at the mesh -> several live supers per tile)."""
-    mesh_arrays = procedural_mesh(n_tris, pos=(0, 0, -3), size=(2, 2, 2))
-    sd = SceneDef(settings=RenderSettings(width=8, height=8))
-    obj = ObjectDef("mesh", pos=(0, 0, -3), size=(2, 2, 2), color=(1, 1, 1))
-    obj.mesh = mesh_arrays
-    sd.objects = [obj]
-    scene = build_scene(sd)
-    mesh = scene.meshes[0]
-    ro, rd = _rays(rays, aim=(0, 0, -3), seed=seed)
-    return mesh, ro, rd
-
-
-@pytest.mark.parametrize("mode", ["closest", "any"])
-def test_fallback_fine_all_pairs(monkeypatch, mode):
-    """Ladder overflow -> FINE all-pairs fallback (shrunk ladder forces
-    the lax.cond chain to fall through to fallback_call). Results must
-    equal the jnp oracle exactly."""
-    import rendering_tpu.ops.pallas_intersect as pi
-
-    mesh, ro, rd = _overflow_mesh()
-    t_limit = jnp.full((ro.shape[0],), 8.0, jnp.float32)
-    t1, tri1, _, _ = bruteforce_mesh(mesh, ro, rd, t_limit, tri_chunk=16)
-
-    monkeypatch.setattr(pi, "_S_BUCKETS", (1,))
-    t2, tri2, _, _ = pi.bruteforce_mesh_pallas(
-        mesh, ro, rd, t_limit, tri_chunk=16, ray_tile=64, interpret=True,
-        mode=mode,
-    )
-    if mode == "closest":
-        np.testing.assert_array_equal(np.asarray(tri1), np.asarray(tri2))
-    else:
-        np.testing.assert_array_equal(
-            np.asarray(tri1 >= 0), np.asarray(tri2 >= 0)
-        )
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("empty_ladder", [False, True])
-def test_fallback_coarse_retile(monkeypatch, empty_ladder):
-    """SMEM-strained fallback -> COARSE (<=16-wide) retiled all-pairs
-    call. empty_ladder=True is the review-found bug case: n_super <= 4
-    leaves no ladder rungs and the code must STILL take the coarse
-    fallback, not the fine all-pairs call."""
-    import rendering_tpu.ops.pallas_intersect as pi
-
-    if empty_ladder:
-        # 700 tris / tri_chunk 32 -> 22 chunks -> n_super 3: no rungs.
-        tc = 32
-    else:
-        tc = 16  # 44 chunks -> n_super 6: rungs exist, ladder shrunk
-        monkeypatch.setattr(pi, "_S_BUCKETS", (1,))
-    monkeypatch.setattr(pi, "_FINE_FB_LIMIT", 0)
-
-    mesh, ro, rd = _overflow_mesh()
-    t1, tri1, _, _ = bruteforce_mesh(mesh, ro, rd, tri_chunk=tc)
-    t2, tri2, _, _ = pi.bruteforce_mesh_pallas(
-        mesh, ro, rd, tri_chunk=tc, ray_tile=64, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(tri1), np.asarray(tri2))
-    both = np.asarray((tri1 >= 0) & (tri2 >= 0))
-    np.testing.assert_allclose(
-        np.asarray(t1)[both], np.asarray(t2)[both], rtol=2e-5, atol=2e-6
-    )
+    for good in (32, 64, 128, 4096):
+        check_ray_tile(good)
 
 
 def test_root_filter_nan_corner_matches_reference_slab():
@@ -336,8 +273,8 @@ def test_root_filter_nan_corner_matches_reference_slab():
     NaN-rejected it, silently culling the triangle on the dense and
     Pallas paths while the BVH walk (literal slab_test) accepted it —
     all three paths must agree on the reference semantics."""
-    from rendering_tpu.models.objloader import MeshArrays
-    from rendering_tpu.ops.traversal import traverse_bvh
+    from rendering_jax.models.objloader import MeshArrays
+    from rendering_jax.ops.traversal import traverse_bvh
 
     verts = np.array([[[0, 0, -5], [1, 0, -5], [0, 1, -5]]], np.float32)
     ma = MeshArrays(
@@ -373,7 +310,7 @@ def test_root_filter_nan_corner_matches_reference_slab():
 def test_integrate_empty_batch():
     """integrate()/shade_normals with zero rays return empty/zero
     results instead of dividing by a zero block size."""
-    from rendering_tpu.render.integrator import integrate, shade_normals
+    from rendering_jax.render.integrator import integrate, shade_normals
 
     mesh_arrays = procedural_mesh(100, pos=(0, 0, -3), size=(2, 2, 2))
     sd = SceneDef(settings=RenderSettings(width=8, height=8))
@@ -392,31 +329,3 @@ def test_integrate_empty_batch():
     assert float(jnp.sum(jnp.abs(accum3))) == 0.0
     assert float(stats["rays_casted"]) == 0.0
     assert shade_normals(scene, ro, rd).shape == (3, 0)
-
-
-def test_anyhit_compaction_exact():
-    """Two-phase any-hit with mid-pass shadow-ray compaction
-    (settings.anyhit_compact_frac) must be EXACT: occlusion is a union
-    over disjoint super-chunk ranges, so the compacted render equals
-    the single-pass render bit-for-bit (interpret-mode kernel)."""
-    import dataclasses
-
-    import numpy as np
-
-    from rendering_tpu.flagship import build_flagship_scene
-    from rendering_tpu.render.pipeline import render_scene
-
-    scene = build_flagship_scene(64, 48, n_tris=800, with_maps=False,
-                                 settings_overrides=dict(
-                                     pallas_interpret=True))
-    f0, _ = render_scene(scene)
-    for frac in (0.25, 0.5):
-        st = scene.static
-        sc = dataclasses.replace(
-            scene,
-            static=dataclasses.replace(
-                st, settings=st.settings.replace(anyhit_compact_frac=frac)
-            ),
-        )
-        f1, _ = render_scene(sc)
-        np.testing.assert_array_equal(np.asarray(f0), np.asarray(f1))

@@ -8,10 +8,10 @@ import jax
 import numpy as np
 import pytest
 
-from rendering_tpu.models.scene import load_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.parallel.shard import make_ray_mesh, render_sharded
-from rendering_tpu.render.pipeline import render
+from rendering_jax.models.scene import load_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.parallel.shard import make_ray_mesh, render_sharded
+from rendering_jax.render.pipeline import render
 
 
 def _shrink(scene, w, h, **kw):
@@ -58,8 +58,8 @@ def test_sharded_grad_psum(in_workspace, eight_device_mesh):
     psum is the gradient all-reduce)."""
     import jax.numpy as jnp
 
-    from rendering_tpu.parallel.shard import render_scene_sharded
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.parallel.shard import render_scene_sharded
+    from rendering_jax.render.pipeline import render_scene
 
     scene = load_scene(
         "t01_simple_shapes.scene", RenderSettings(ssaa_capacity_fraction=1.0)
@@ -92,7 +92,7 @@ def test_multihost_helpers_single_process():
     global mesh spans all devices."""
     import jax
 
-    from rendering_tpu.parallel.multihost import (
+    from rendering_jax.parallel.multihost import (
         initialize_distributed,
         make_global_ray_mesh,
         make_host_ray_mesh,
@@ -130,11 +130,11 @@ def test_sharded_odd_device_count(in_workspace):
 def test_unpermute_slots_matches_scatter():
     """The scatter-free slot inversion (reshape/transpose chain) must
     equal the permutation scatter exactly for divisible and padded
-    layouts — it replaced a ~97 ms (3, 2M) scatter per sharded frame."""
+    layouts."""
     import jax.numpy as jnp
     import numpy as np
 
-    from rendering_tpu.parallel.shard import (
+    from rendering_jax.parallel.shard import (
         _round_robin_layout,
         unpermute_slots,
     )
@@ -158,8 +158,8 @@ def test_round_robin_layout_slots_are_screen_coherent():
     the kernel pre-cull."""
     import numpy as np
 
-    from rendering_tpu.parallel.shard import _round_robin_layout
-    from rendering_tpu.render.raygen import tile_dims
+    from rendering_jax.parallel.shard import _round_robin_layout
+    from rendering_jax.render.raygen import tile_dims
 
     w, h, ndev = 1920, 1080, 8
     rp, perm = _round_robin_layout(w * h, ndev, (w, h))

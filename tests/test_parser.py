@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from rendering_tpu.models.parser import SceneError, parse_scene
-from rendering_tpu.models.scene import build_scene
+from rendering_jax.models.parser import SceneError, parse_scene
+from rendering_jax.models.scene import build_scene
 
 
 def _write(tmp_path, text):
@@ -145,12 +145,10 @@ def test_legacy_scene_format_rejected_like_reference():
 
     import pytest
 
-    from rendering_tpu.models.parser import SceneError, parse_scene
+    from rendering_jax.flagship import REFERENCE_DIR
+    from rendering_jax.models.parser import SceneError, parse_scene
 
-    path = os.path.join(
-        os.environ.get("REFERENCE_DIR", "/root/reference"),
-        "input", "smooth_shading.scene",
-    )
+    path = os.path.join(REFERENCE_DIR, "input", "smooth_shading.scene")
     if not os.path.exists(path):
         pytest.skip("reference assets not mounted")
     with pytest.raises(SceneError):
@@ -163,7 +161,7 @@ def test_stream_number_semantics():
     helpers (NOT Python float()/int() semantics)."""
     import math
 
-    from rendering_tpu.models.parser import _to_float, _to_int
+    from rendering_jax.models.parser import _to_float, _to_int
 
     ok = {
         "1_0": 1.0, "1.5abc": 1.5, "": 0.0, " ": 0.0, "0x1p3": 0.0,
@@ -319,7 +317,7 @@ def test_traverse_empty_mesh_respects_flt_max_contract():
 
     import jax.numpy as jnp
 
-    from rendering_tpu.ops.traversal import FLT_MAX, traverse_bvh
+    from rendering_jax.ops.traversal import FLT_MAX, traverse_bvh
 
     mesh = types.SimpleNamespace(
         node_min=jnp.zeros((0, 3), jnp.float32),

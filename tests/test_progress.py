@@ -7,9 +7,9 @@ import itertools
 import numpy as np
 import pytest
 
-from rendering_tpu.models.scene import load_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.render.pipeline import render, render_with_progress
+from rendering_jax.models.scene import load_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.render.pipeline import render, render_with_progress
 
 
 def _shrink(scene, w, h, **kw):
@@ -55,7 +55,7 @@ def test_progress_sharded_matches(in_workspace):
     single-device strip render."""
     import jax
 
-    from rendering_tpu.parallel.shard import make_ray_mesh
+    from rendering_jax.parallel.shard import make_ray_mesh
 
     scene = load_scene(
         "t01_simple_shapes.scene", RenderSettings(ssaa_capacity_fraction=1.0)
@@ -81,8 +81,8 @@ def test_resumable_sharded_matches_and_resumes(in_workspace, tmp_path):
     and resumes to the same frame."""
     import jax
 
-    from rendering_tpu.parallel.shard import make_ray_mesh
-    from rendering_tpu.render.pipeline import render_resumable
+    from rendering_jax.parallel.shard import make_ray_mesh
+    from rendering_jax.render.pipeline import render_resumable
 
     scene = load_scene(
         "t01_simple_shapes.scene", RenderSettings(ssaa_capacity_fraction=1.0)
@@ -105,7 +105,7 @@ def test_resumable_rejects_stale_scene_checkpoint(in_workspace, tmp_path):
     must not be served as the render: the scene fingerprint in the
     checkpoint meta forces a from-scratch render, and the fresh run's
     aux carries real accumulated stats (the common wrapper contract)."""
-    from rendering_tpu.render.pipeline import render_resumable
+    from rendering_jax.render.pipeline import render_resumable
 
     scene_a = load_scene(
         "t01_simple_shapes.scene", RenderSettings(ssaa_capacity_fraction=1.0)
@@ -143,13 +143,13 @@ def test_fingerprint_detects_large_leaf_edits():
     """Moving a mesh rewrites the baked vertex arrays but not their
     shape/dtype — a shape-only fingerprint would silently serve a
     stale checkpoint as finished pixels. Large leaves must contribute
-    a content sample: a uniform translate, a single-element interior
-    edit (stride sample / sum), and a texel repaint must all change
-    the hash; recomputing on the identical scene must not."""
+    their content: a uniform translate, a single-element interior
+    edit, and a texel repaint must all change the hash; recomputing on
+    the identical scene must not."""
     import jax.numpy as jnp
 
-    from rendering_tpu.flagship import build_flagship_scene
-    from rendering_tpu.render.pipeline import _scene_fingerprint
+    from rendering_jax.flagship import build_flagship_scene
+    from rendering_jax.render.pipeline import _scene_fingerprint
 
     scene = build_flagship_scene(32, 24, n_tris=4096)
     m = scene.meshes[0]
@@ -180,14 +180,32 @@ def test_fingerprint_detects_large_leaf_edits():
         assert _scene_fingerprint(repainted) != fp0
 
 
+def test_fingerprint_detects_integer_leaf_edits():
+    """A local edit to a large INTEGER leaf (a BVH skip pointer) that
+    keeps every shape and every float leaf changes the hash: every
+    leaf's full bytes are hashed, not a sample of them."""
+    from rendering_jax.flagship import build_flagship_scene
+    from rendering_jax.render.pipeline import _scene_fingerprint
+
+    scene = build_flagship_scene(32, 24, n_tris=4096, with_maps=False)
+    m = scene.meshes[0]
+    skip = np.asarray(m.skip).copy()
+    assert skip.size > 1024
+    skip[skip.size // 2 + 7] += 1
+    edited = dataclasses.replace(
+        scene, meshes=(dataclasses.replace(m, skip=skip),)
+    )
+    assert _scene_fingerprint(edited) != _scene_fingerprint(scene)
+
+
 def test_strip_render_compiles_one_program_per_rows_shape(in_workspace):
     """y0 is a TRACED scalar in the strip functions: a whole-frame
     strip render must compile at most two programs (full strip + tail
-    strip), not one per strip — on TPU each bounce-program compile is
-    tens of seconds, so per-strip recompiles would dominate progress /
-    resumable renders."""
-    from rendering_tpu.render.integrator import DEFAULT_RAY_BLOCK
-    from rendering_tpu.render.pipeline import _make_strip_fns
+    strip), not one per strip — on an accelerator each bounce-program
+    compile is tens of seconds, so per-strip recompiles would dominate
+    progress / resumable renders."""
+    from rendering_jax.render.integrator import DEFAULT_RAY_BLOCK
+    from rendering_jax.render.pipeline import _make_strip_fns
 
     scene = load_scene(
         "t01_simple_shapes.scene", RenderSettings(ssaa_capacity_fraction=1.0)
@@ -199,15 +217,34 @@ def test_strip_render_compiles_one_program_per_rows_shape(in_workspace):
     assert strip_fn._cache_size() == 2  # full + tail, NOT 3
 
 
+def _showac_scene(ws) -> str:
+    """An in-repo showAC=1 scene: t01's objects plus a seeded mesh
+    loaded by name (the AC heatmap visualizes the mesh BVH)."""
+    from rendering_jax.flagship import write_procedural_obj
+
+    write_procedural_obj(str(ws / "showac_mesh.obj"), 400, seed=3)
+    text = (ws / "t01_simple_shapes.scene").read_text()
+    text = text.replace("outputProgress=0", "outputProgress=0\nshowAC=1")
+    mesh = (
+        "[object]\ntype=mesh\npos=0.6,-0.4,-3\nsize=1.5,1.5,1.5\n"
+        "color=1,1,1\nrot=0,30,0\nname=showac_mesh.obj\n\n[end]"
+    )
+    text = text.replace("[end]", mesh)
+    (ws / "showac_seeded.scene").write_text(text)
+    return "showac_seeded.scene"
+
+
 def test_progress_show_ac_delegates(in_workspace):
     """show_ac is a single whole-frame debug pass: render_with_progress
     must produce the AC heatmap (not silently strip-render the normal
     image), identical to render()."""
-    scene = load_scene("t09_showac.scene", RenderSettings())
+    scene = load_scene(_showac_scene(in_workspace), RenderSettings())
     scene = _shrink(scene, 48, 32)
     assert scene.static.settings.show_ac
+    assert scene.static.meshes[0].n_tris >= 400
 
     f_ref, _ = render(scene)
+    assert f_ref.max() > 0  # the heatmap is not blank
     lines = []
     f_prog, aux = render_with_progress(
         scene, strip_rows=16, _print=lines.append
@@ -217,9 +254,9 @@ def test_progress_show_ac_delegates(in_workspace):
 
 
 def test_resumable_show_ac_delegates(in_workspace, tmp_path):
-    from rendering_tpu.render.pipeline import render_resumable
+    from rendering_jax.render.pipeline import render_resumable
 
-    scene = load_scene("t09_showac.scene", RenderSettings())
+    scene = load_scene(_showac_scene(in_workspace), RenderSettings())
     scene = _shrink(scene, 48, 32)
     f_ref, _ = render(scene)
     f_res, _ = render_resumable(
@@ -249,7 +286,7 @@ def test_progress_shownormals_runs_ssaa(in_workspace):
     f_prog, _ = render_with_progress(scene, strip_rows=16)
     np.testing.assert_allclose(f_ref, f_prog, atol=1.2e-7)
 
-    from rendering_tpu.render.pipeline import render_resumable
+    from rendering_jax.render.pipeline import render_resumable
     import tempfile, os
     with tempfile.TemporaryDirectory() as d:
         f_res, _ = render_resumable(
@@ -262,8 +299,8 @@ def test_progress_out_u8_matches_quantized(in_workspace):
     """out_u8 quantizes the FINISHED strip-rendered frame on device
     (4x smaller final pull); bytes must equal the host-quantized f32
     result exactly, for both strip wrappers."""
-    from rendering_tpu.render.pipeline import render_resumable
-    from rendering_tpu.utils.bmp import quantize_reference
+    from rendering_jax.render.pipeline import render_resumable
+    from rendering_jax.utils.bmp import quantize_reference
 
     scene = load_scene(
         "t01_simple_shapes.scene", RenderSettings(ssaa_capacity_fraction=1.0)

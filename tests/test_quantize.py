@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rendering_tpu.render.pipeline import quantize_u8, render
-from rendering_tpu.utils.bmp import encode_bmp, quantize_reference
+from rendering_jax.render.pipeline import quantize_u8, render
+from rendering_jax.utils.bmp import encode_bmp, quantize_reference
 
 
 def test_quantize_u8_matches_reference_quantizer():
@@ -43,8 +43,8 @@ def test_render_out_u8_matches_host_quantized_bmp(in_workspace):
     the f32 render quantized host-side (the golden-test path)."""
     import dataclasses
 
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
 
     scene = load_scene(
         "t01_simple_shapes.scene",
@@ -68,9 +68,9 @@ def test_render_out_u8_matches_host_quantized_bmp(in_workspace):
 def test_render_sharded_out_u8_matches(in_workspace):
     import dataclasses
 
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
-    from rendering_tpu.parallel.shard import make_ray_mesh, render_sharded
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
+    from rendering_jax.parallel.shard import make_ray_mesh, render_sharded
 
     scene = load_scene(
         "t01_simple_shapes.scene",

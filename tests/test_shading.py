@@ -3,7 +3,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from rendering_tpu.ops.shading import fresnel, reflect, refract
+from rendering_jax.ops.shading import fresnel, reflect, refract
 
 
 def test_reflect():
@@ -77,7 +77,7 @@ def test_compact_children_drops_smallest_weights():
     import jax.numpy as jnp
     import numpy as np
 
-    from rendering_tpu.render.integrator import (
+    from rendering_jax.render.integrator import (
         _compact_children,
         _zero_stats,
     )
@@ -126,7 +126,7 @@ def test_refract_critical_angle_gradient_finite():
     import jax
     import jax.numpy as jnp
 
-    from rendering_tpu.ops.shading import refract
+    from rendering_jax.ops.shading import refract
 
     d = np.array([0.8, 0.0, -0.6], np.float32)
     n = np.array([0.0, 0.0, 1.0], np.float32)

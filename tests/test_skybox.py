@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rendering_tpu.ops.skybox import sample_skybox
+from rendering_jax.ops.skybox import sample_skybox
 
 
 def _box(h=4, w=4):

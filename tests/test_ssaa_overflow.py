@@ -1,17 +1,17 @@
 """SSAA capacity overflow auto-escalation: a render whose Sobel edge
 mask exceeds the fraction-derived queue capacity must transparently
 re-run with a large-enough queue and match the fraction=1.0 result
-exactly (VERDICT round-1 weak point: capacity used to silently degrade
-parity on edge-heavy frames)."""
+exactly (capacity used to silently degrade parity on edge-heavy
+frames)."""
 
 import dataclasses
 
 import numpy as np
 import pytest
 
-from rendering_tpu.models.scene import load_scene
-from rendering_tpu.models.settings import RenderSettings
-from rendering_tpu.render.pipeline import render
+from rendering_jax.models.scene import load_scene
+from rendering_jax.models.settings import RenderSettings
+from rendering_jax.render.pipeline import render
 
 
 def _with(scene, **kw):
@@ -47,7 +47,7 @@ def test_sharded_overflow_escalates(in_workspace):
     queue capacity (review-found round-2 bug)."""
     import jax
 
-    from rendering_tpu.parallel.shard import make_ray_mesh, render_sharded
+    from rendering_jax.parallel.shard import make_ray_mesh, render_sharded
 
     mesh = make_ray_mesh(jax.devices())
     scene = load_scene(

@@ -1,4 +1,4 @@
-"""Bilinear texture filtering (TPU-native extension behind
+"""Bilinear texture filtering (framework extension behind
 RenderSettings.texture_filter; default "nearest" keeps reference
 parity, pinned by the golden suite). Bilinear exists for inverse
 rendering: nearest's UV-space gradient is zero almost everywhere,
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rendering_tpu.ops.texture import (
+from rendering_jax.ops.texture import (
     sample_map_bilinear_r,
     sample_map_r,
     sample_packed_bilinear_r,
@@ -80,8 +80,8 @@ def test_bilinear_uv_gradient_matches_fd():
 
 
 def _textured_scene(texture_filter):
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
 
     scene = load_scene(
         "t03_cow_textured.scene",
@@ -96,7 +96,7 @@ def _textured_scene(texture_filter):
 
 @pytest.mark.slow
 def test_render_bilinear_differs_and_is_finite(in_workspace):
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.render.pipeline import render_scene
 
     f_near, _ = render_scene(_textured_scene("nearest"))
     f_bil, _ = render_scene(_textured_scene("bilinear"))
@@ -112,8 +112,8 @@ def test_render_bilinear_differs_and_is_finite(in_workspace):
 
 @pytest.mark.slow
 def test_render_bilinear_texel_gradients_flow(in_workspace):
-    from rendering_tpu.diff.inverse import apply_params, extract_params
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.diff.inverse import apply_params, extract_params
+    from rendering_jax.render.pipeline import render_scene
 
     scene = _textured_scene("bilinear")
     paths = (("meshes", 0, "diffuse_map"),)
@@ -130,8 +130,8 @@ def test_render_bilinear_texel_gradients_flow(in_workspace):
 
 
 def test_invalid_filter_rejected():
-    from rendering_tpu.render.integrator import _samplers
-    from rendering_tpu.models.settings import RenderSettings
+    from rendering_jax.render.integrator import _samplers
+    from rendering_jax.models.settings import RenderSettings
 
     with pytest.raises(ValueError, match="texture_filter"):
         _samplers(RenderSettings(texture_filter="trilinear"))

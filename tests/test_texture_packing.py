@@ -21,9 +21,9 @@ import pytest
 def test_packed_maps_bitwise_equal_per_map_path(in_workspace):
     import jax.numpy as jnp
 
-    from rendering_tpu.models.scene import load_scene
-    from rendering_tpu.models.settings import RenderSettings
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.models.scene import load_scene
+    from rendering_jax.models.settings import RenderSettings
+    from rendering_jax.render.pipeline import render_scene
 
     if not os.path.exists("input/objects/cow.obj"):
         pytest.skip("reference assets not mounted")

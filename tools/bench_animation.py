@@ -43,7 +43,7 @@ def time_frames(gen_factory, n_frames: int) -> float:
 
 
 def main() -> int:
-    from rendering_tpu.utils.compile_cache import enable_compilation_cache
+    from rendering_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
     width = int(os.environ.get("ANIM_WIDTH", 1920))
@@ -51,8 +51,8 @@ def main() -> int:
     n_tris = int(os.environ.get("ANIM_TRIS", 250_000))
     n_frames = int(os.environ.get("ANIM_FRAMES", 8))
 
-    from rendering_tpu.flagship import build_flagship_scene
-    from rendering_tpu.render.animation import (
+    from rendering_jax.flagship import build_flagship_scene
+    from rendering_jax.render.animation import (
         orbit_cameras,
         render_frames,
         render_frames_pipelined,

@@ -1,7 +1,7 @@
 """End-to-end frame wall-clock benchmark — the reference's headline
 timing claim, measured like the reference measures it.
 
-/root/reference/README.md:69 claims the 250,000-triangle model renders
+The reference's README.md:69 claims the 250,000-triangle model renders
 in ~6 s with the SAH BVH (its "Render scene" Timer phase,
 src/scene.cpp:472 — scene/OBJ loading and BMP write are timed
 separately). This script times our equivalent: a full host-facing
@@ -32,7 +32,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def time_render(scene, reps: int, out_u8: bool = False) -> float:
-    from rendering_tpu.render.pipeline import render
+    from rendering_jax.render.pipeline import render
 
     # warmup: compile primary + SSAA (+ escalated SSAA)
     render(scene, out_u8=out_u8)
@@ -51,7 +51,7 @@ def time_progress(scene, reps: int, strip_rows: int = 128) -> float:
     strip k's pull) and the finished frame quantized on device
     (out_u8 — what the CLI passes). Frame equality with render() is
     pinned by tests/test_progress.py; this measures its wall-clock."""
-    from rendering_tpu.render.pipeline import render_with_progress
+    from rendering_jax.render.pipeline import render_with_progress
 
     def once():
         return render_with_progress(scene, strip_rows=strip_rows,
@@ -68,16 +68,16 @@ def time_progress(scene, reps: int, strip_rows: int = 128) -> float:
 
 
 def main() -> int:
-    from rendering_tpu.utils.compile_cache import enable_compilation_cache
+    from rendering_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
     width = int(os.environ.get("E2E_WIDTH", 3840))
     height = int(os.environ.get("E2E_HEIGHT", 1080))
     n_tris = int(os.environ.get("E2E_TRIS", 250_000))
     reps = int(os.environ.get("E2E_REPS", 3))
-    baseline_s = 6.0  # /root/reference/README.md:69
+    baseline_s = 6.0  # the reference's README.md:69
 
-    from rendering_tpu.flagship import build_flagship_scene
+    from rendering_jax.flagship import build_flagship_scene
 
     scene_on = build_flagship_scene(width=width, height=height,
                                     n_tris=n_tris, enable_ssaa=True)

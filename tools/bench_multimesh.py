@@ -1,11 +1,11 @@
 """On-chip A/B: fused multi-mesh intersection vs the per-mesh
-dispatch loop (VERDICT r3 #1).
+dispatch loop.
 
 Renders the N-mesh bunny-grid stress scene
 (flagship.build_multimesh_scene) twice per size — once with the baked
 FusedTables (ONE kernel dispatch + one shared pre-cull per ray block)
 and once with fusion disabled (fused_itables stripped -> the per-mesh
-loop pays N pre-culls + N Mosaic dispatches per bounce and per batched
+loop pays N pre-culls + N kernel dispatches per bounce and per batched
 shadow query) — and prints one JSON line per configuration.
 
 Usage: python tools/bench_multimesh.py [--sizes 1,4,16] [--reps 3]
@@ -27,7 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def time_render(scene, reps: int) -> float:
     import jax
 
-    from rendering_tpu.render.pipeline import render_scene
+    from rendering_jax.render.pipeline import render_scene
 
     frame, aux = render_scene(scene)  # compile + warmup
     jax.block_until_ready(frame)
@@ -49,10 +49,10 @@ def main() -> int:
                     "(default: real bunny.obj when assets exist)")
     args = ap.parse_args()
 
-    from rendering_tpu.utils.compile_cache import enable_compilation_cache
+    from rendering_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
-    from rendering_tpu.flagship import build_multimesh_scene
+    from rendering_jax.flagship import build_multimesh_scene
 
     rays = args.width * args.height
     for n in (int(s) for s in args.sizes.split(",")):

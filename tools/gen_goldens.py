@@ -1,6 +1,6 @@
 """Golden-image generation harness.
 
-Builds the C++ reference (sources read from /root/reference, artifacts
+Builds the C++ reference (sources read from $REFERENCE_DIR, artifacts
 kept strictly inside this repo), sets up a workspace with asset
 symlinks + synthesized maps, renders every scene in tests/scenes/ with
 the reference binary, and copies the BMPs into tests/goldens/.
@@ -16,7 +16,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REFERENCE = os.environ.get("REFERENCE_DIR", "/root/reference")
+REFERENCE = os.environ.get("REFERENCE_DIR", os.path.join(REPO, "reference"))
 GOLDEN_DIR = os.path.join(REPO, ".golden")
 BINARY = os.path.join(GOLDEN_DIR, "RayTracing")
 WS = os.path.join(GOLDEN_DIR, "ws")

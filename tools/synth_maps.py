@@ -15,7 +15,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from rendering_tpu.utils.bmp import encode_bmp  # noqa: E402
+from rendering_jax.utils.bmp import encode_bmp  # noqa: E402
 
 SIZE = 64
 
